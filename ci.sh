@@ -4,7 +4,7 @@
 # gate). Run before every round snapshot: a red suite must never ship.
 #
 #   ./ci.sh          build native artifacts + full test suite
-#   ./ci.sh --bench  also run the quick benchmark smoke (needs a device)
+#   ./ci.sh --bench  also run the quick benchmark smoke (needs a GPU)
 set -euo pipefail
 cd "$(dirname "$0")"
 
@@ -17,12 +17,12 @@ make -C native
 echo "== tests: full suite (CPU via tests/conftest.py) =="
 python -m pytest tests/ -q
 
-echo "== tests: on-TPU lane (skips itself when no TPU is attached) =="
-# Runs the Mosaic-compiled Pallas kernels, per-filter TPU-vs-CPU parity
-# at A4 shape, compile-time HBM budget guards, and one fused-chain
-# execution at the bench shape (A4 x 8). This lane exists because
-# round 2 shipped a green CPU suite alongside a bench-scale TPU OOM.
-python -m pytest tests_tpu/ -q
+echo "== tests: on-card lane (every test skips, with its reason, without a GPU) =="
+# Per-filter GPU-vs-CPU parity at A4, compile-time memory budgets at the
+# bench shape (A4 x 16), the Triton ACE kernel compiled for the card, and
+# the fused chain at the bench shape. On a GPU machine, chip_smoke.py runs
+# this lane as its last phase, after the end-to-end phases.
+python -m pytest tests_gpu/ -q -rs
 
 if [[ "${1:-}" == "--bench" ]]; then
   echo "== bench: quick smoke =="

@@ -1,10 +1,10 @@
-"""libpillowfight_tpu — TPU-native stencil/scan-processing framework with
+"""libpillowfight_tpu — batched JAX stencil/scan-processing framework with
 the full capability set of openpaperwork/libpillowfight (SURVEY.md).
 
 Two API surfaces:
 
 * **Native batched API** (`libpillowfight_tpu.ops`): jit-compiled kernels
-  over uint8 RGBA page batches [B, H, W, 4] — the TPU-first interface.
+  over uint8 RGBA page batches [B, H, W, 4] — the throughput interface.
 * **Compatibility façade** (`libpillowfight_tpu.compat`, re-exported
   here): pillowfight drop-in, PIL.Image in/out, one call per image.
 """

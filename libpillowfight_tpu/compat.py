@@ -4,7 +4,7 @@ Drop-in replacement for the reference's Python API
 (ref: src/pillowfight/__init__.py — SURVEY.md §2.3: `import pillowfight;
 pillowfight.ace(img)` etc.). Every public function accepts a PIL.Image
 (or anything PIL can be built from: numpy uint8 RGBA) and returns a
-PIL.Image, while dispatching to the batched TPU kernels underneath.
+PIL.Image, while dispatching to the batched device kernels underneath.
 
 For throughput, use the native batched API (libpillowfight_tpu.ops.*)
 directly — this façade pays a host<->device round trip per image, exactly
@@ -60,7 +60,7 @@ def ace(img, slope=C.ACE_DEFAULT_SLOPE, limit=C.ACE_DEFAULT_LIMIT,
     while running dense at shared-spray speed. Remaining deviation
     (PARITY.md #15): cross-pixel sample correlation differs from
     upstream's fully independent draws. Pass mode="per_pixel" for fully
-    independent sampling (gather-bound, much slower on TPU), or
+    independent sampling (gather-bound, much slower), or
     mode="shared" for the fastest single-spray approximation."""
     seed = C.ACE_DEFAULT_SEED if seed is None else int(seed)
     return _out(_ace(

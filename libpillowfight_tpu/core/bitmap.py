@@ -1,6 +1,6 @@
 """Core image model: batched RGBA pages + grayscale planes.
 
-TPU-native replacement for the reference's L1 data model
+Replacement for the reference's L1 data model
 (ref: include/pillowfight/util.h `struct pf_bitmap` / `union pf_pixel`,
 src/pillowfight/util.c matrix helpers — see SURVEY.md §2.1).
 
@@ -59,12 +59,10 @@ def rgba_to_gray(pages: jax.Array) -> jax.Array:
 
 
 # -- packed-word transport -------------------------------------------------
-# A uint8 [B,H,W,4] array's last dim is 4 where the TPU wants 128 lanes:
-# every elementwise pass over it runs ~6-9x off SOL (measured 4.6 ms vs
-# 0.5 ms for one gray extraction at A4x8 on v5e). The fix is the
-# reference's own pixel model (ref: util.h `union pf_pixel` — a 32-bit
-# word): transport RGBA as uint32 words [B, H, W]. On host the view is
-# free (same bytes); on device a one-time bitcast normalizes the layout.
+# The reference's own pixel model (ref: util.h `union pf_pixel` — a 32-bit
+# word): RGBA travels as uint32 words [B, H, W], so one load fetches a
+# whole pixel and the channel split is shifts and masks. On host the view
+# is free (same bytes); on device it is a bitcast.
 
 def pages_to_words(pages: jax.Array) -> jax.Array:
     """uint8 [..., 4] RGBA -> uint32 [...] words (R = low byte)."""
@@ -95,50 +93,6 @@ def words_to_gray(words: jax.Array) -> jax.Array:
     g = ((words >> jnp.uint32(8)) & jnp.uint32(0xFF)).astype(jnp.float32)
     b = ((words >> jnp.uint32(16)) & jnp.uint32(0xFF)).astype(jnp.float32)
     return (r + g + b) / 3.0
-
-
-def row_major_format(ndim: int, device=None):
-    """Format pinning the row-major layout on one device (None when the
-    layout API is unavailable). Pass as jit in_shardings/out_shardings
-    so the compiled executable, its cache key, and the arrays agree on
-    layout — see put_row_major for why row-major."""
-    dev = device if device is not None else jax.devices()[0]
-    try:
-        from jax.experimental.layout import Format, Layout
-        from jax.sharding import SingleDeviceSharding
-
-        return Format(Layout(tuple(range(ndim))), SingleDeviceSharding(dev))
-    except Exception:
-        return None
-
-
-def put_row_major(host_array, device=None) -> jax.Array:
-    """Transfer a host array to `device` (default: first device) pinned
-    to the ROW-MAJOR layout.
-
-    Why: XLA's default TPU layout for [B, H, W] page planes puts H on
-    the lane axis when that wastes less tile padding (A4's 2480 % 128
-    != 0), but every kernel in this package is written W-on-lanes — a
-    default-layout input costs two full-plane relayout copies per
-    pipeline call (~1.7 ms at A4x8 u32 on v5e). Pinning the layout at
-    transfer time is free. Falls back to a plain device_put where the
-    layout API is unavailable (CPU backends don't care)."""
-    dev = device if device is not None else jax.devices()[0]
-    arr = np.asarray(host_array)
-    # pin only when the minor dim can fill the 128-lane axis: forcing
-    # row-major on [..., 4] RGBA u8 would put the channel dim on lanes
-    # (32x tile-padding blowup — observed 8.3 GB of argument buffers
-    # for one 278 MB batch)
-    if arr.ndim < 2 or arr.shape[-1] < 128:
-        return jax.device_put(arr, dev)
-    try:
-        from jax.experimental.layout import Format, Layout
-        from jax.sharding import SingleDeviceSharding
-
-        fmt = Format(Layout(tuple(range(arr.ndim))), SingleDeviceSharding(dev))
-        return jax.device_put(arr, fmt)
-    except Exception:
-        return jax.device_put(arr, dev)
 
 
 def words_to_s3(words: jax.Array) -> jax.Array:

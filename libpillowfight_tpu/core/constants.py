@@ -9,8 +9,8 @@ algorithms libpillowfight implements: the unpaper scan-filter family
 
 Parity contract: the C++ oracle under /root/repo/oracle is generated from
 THIS file (`python -m libpillowfight_tpu.core.constants --emit-header`),
-so the TPU kernels and the oracle share one definition of every constant.
-Golden tests pin TPU output against the oracle per-pixel.
+so the JAX kernels and the oracle share one definition of every constant.
+Golden tests pin JAX output against the oracle per-pixel.
 
 Reference-parity citations use upstream paths from SURVEY.md §2
 (e.g. src/pillowfight/ace.c) — the files themselves are absent from the
@@ -61,7 +61,7 @@ CANNY_HIGH_THRESHOLD_FRACTION = 0.47       # strong-edge floor
 ACE_DEFAULT_NB_SAMPLES = 100
 ACE_DEFAULT_SLOPE = 10.0
 ACE_DEFAULT_LIMIT = 1000.0
-ACE_DEFAULT_NB_THREADS = 2  # kept for API parity; ignored on TPU
+ACE_DEFAULT_NB_THREADS = 2  # kept for API parity; ignored
 ACE_DEFAULT_SEED = 0xACE5EED
 # Per pixel p, per channel c (values in 0..255):
 #   R_c(p)    = sum_s  sat(slope * (I_c(p) - I_c(s))) / d(p, s)
@@ -77,7 +77,7 @@ SWT_OUTPUT_BW_TEXT = 0
 SWT_OUTPUT_GRAYSCALE_TEXT = 1
 SWT_OUTPUT_ORIGINAL_BOXES = 2
 
-SWT_MAX_RAY_LEN = 128          # bounded ray march (TPU static bound)
+SWT_MAX_RAY_LEN = 128          # bounded ray march (static bound)
 SWT_RAY_ANGLE_TOLERANCE = 0.5235987755982988  # pi/6: opposing-gradient cone
 SWT_CC_SW_RATIO = 3.0          # connect pixels whose SW ratio <= 3
 # Letter-candidate filters (CCV defaults):

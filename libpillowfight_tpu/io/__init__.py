@@ -1,14 +1,14 @@
 """Native page IO: PNM decode/encode + threaded prefetching page source.
 
 The reference's native layer is its C kernel library (SURVEY.md §1); in
-the TPU framework the kernels run on-device, so the native layer moves to
+this framework the kernels run on-device, so the native layer moves to
 the host's real job — decoding and staging pages. `native/libpfio.so`
 (C++, ctypes-bound, built on demand like the oracle) provides:
 
   * `decode_pnm` / `write_ppm` / `write_pgm` — the debug/IO path
     (ref: util.c pf_write_bitmap_to_ppm, SURVEY.md §2.1), and
   * `PnmPageSource` — a double-buffered, multi-threaded prefetcher that
-    decodes + white-pads pages to a uniform [H, W] while the TPU chews on
+    decodes + white-pads pages to a uniform [H, W] while the device chews on
     the previous chunk; plugs straight into `BatchRunner(source=...)`.
 
 Pure-numpy fallbacks keep everything working if g++ is unavailable.
@@ -178,7 +178,7 @@ class PnmPageSource:
     `source(indices)` returns uint8 [n, H, W, 4]; pages smaller than
     (H, W) are white-padded at the bottom/right (white is inert for the
     unpaper filters), larger ones cropped. While the caller processes a
-    chunk on the TPU, the pool is already decoding the next sequential
+    chunk on the device, the pool is already decoding the next sequential
     chunk into the spare buffer; a sequential access pattern therefore
     hides host decode time entirely.
 

@@ -1,4 +1,4 @@
-"""Algorithm kernels (the reference's L2 — SURVEY.md §2.2), TPU-native."""
+"""Algorithm kernels (the reference's L2 — SURVEY.md §2.2), batched JAX."""
 
 from .ace import ace, ace_with_samples
 from .canny import canny, canny_edge_mask

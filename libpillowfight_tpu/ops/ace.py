@@ -4,13 +4,14 @@ Ref: src/pillowfight/ace.c pf_ace — SURVEY.md §3.1. The reference samples
 `nb_samples` random pixels per output pixel (O(W*H*S) random-access reads,
 split across pthreads — the library's only threaded kernel).
 
-TPU re-design, two estimators:
+Re-design, three estimators:
 
 * ``mode="shared"`` (default): S sample positions are drawn per page and
-  shared by every pixel. Each sample contributes one dense, fused
-  elementwise pass (distance from a broadcast point + saturated
-  difference), so the whole kernel is a single streaming sweep over the
-  page — no gathers at all. This is the Monte-Carlo "random spray"
+  shared by every pixel. Each sample contributes one dense elementwise
+  term (distance from a broadcast point + saturated difference), so no
+  pixel gathers anything; on the GPU the S terms accumulate in registers
+  inside one Pallas kernel (pallas/ace_kernel.py), one read of the page
+  and one write. This is the Monte-Carlo "random spray"
   estimator with a shared spray; statistically it equalizes against the
   same global sample distribution the reference draws from.
 * ``mode="rolled"`` (the compat default): per-pixel sampling by shared
@@ -28,7 +29,7 @@ TPU re-design, two estimators:
   gather speed.
 
 Parity: `ace_with_samples` takes explicit sample coordinates so the C++
-oracle and the TPU kernel can be fed identical samples (exact per-pixel
+oracle and the kernels can be fed identical samples (exact per-pixel
 comparison, no RNG mismatch).
 
 Per pixel p, channel c, values in 0..255:
@@ -51,6 +52,7 @@ import jax.numpy as jnp
 
 from ..core import constants as C
 from ..core.bitmap import ensure_batched, maybe_unbatch, to_uint8
+from .pallas.ace_kernel import ace_spray
 
 
 def _rescale(n: jax.Array) -> jax.Array:
@@ -76,6 +78,14 @@ def _sample_coords(key: jax.Array, b: int, s: int, h: int, w: int):
 def ace_with_samples(pages: jax.Array, sy: jax.Array, sx: jax.Array,
                      slope: float, limit: float) -> jax.Array:
     """Shared-sample ACE. pages uint8 [B,H,W,4]; sy/sx int32 [B,S]."""
+    n = spray_scan(pages, sy, sx, slope, limit)
+    return jnp.concatenate([_rescale(n), pages[..., 3:]], axis=-1)
+
+
+def spray_scan(pages: jax.Array, sy: jax.Array, sx: jax.Array,
+               slope: float, limit: float) -> jax.Array:
+    """The normalized field n = num / den, f32 [B,H,W,3], as a lax.scan
+    over the S shared samples (the plain reference of the spray kernel)."""
     b, h, w, _ = pages.shape
     s = sy.shape[1]
     rgb = pages[..., :3].astype(jnp.float32)  # [B,H,W,3]
@@ -105,7 +115,7 @@ def ace_with_samples(pages: jax.Array, sy: jax.Array, sx: jax.Array,
         body, (zeros, zeros),
         (jnp.moveaxis(sy, 1, 0), jnp.moveaxis(sx, 1, 0), jnp.moveaxis(sval, 1, 0)),
     )
-    return jnp.concatenate([_rescale(num / den), pages[..., 3:]], axis=-1)
+    return num / den
 
 
 def _pixel_sample_accum(rgb, flat, idx, slope, limit):
@@ -151,8 +161,7 @@ def _ace_rolled(pages: jax.Array, key: jax.Array, nb_samples: int,
     adds in the SAME order as one-per-step, bit-identical): the scan's
     (num, den) carries are 2x12 B/px that XLA reads+writes every step,
     so per-sample stepping moved ~96 B/px/sample of pure carry traffic
-    — 4x the useful sample reads. Chunking divides it by `chunk`
-    (measured 577 -> ~150 ms at 600dpi/100 samples on v5e)."""
+    — 4x the useful sample reads. Chunking divides it by `chunk`."""
     b, h, w, _ = pages.shape
     rgb = pages[..., :3].astype(jnp.float32)
     ky, kx = jax.random.split(key)
@@ -222,21 +231,30 @@ def _ace_per_pixel(pages: jax.Array, key: jax.Array, nb_samples: int,
     return jnp.concatenate([_rescale(num / den), pages[..., 3:]], axis=-1)
 
 
-def _ace_with_samples_pallas(pages, sy, sx, slope, limit):
-    """Shared-sample ACE via the Pallas VMEM-resident tile kernel:
-    1x HBM sweep instead of the scan path's S sweeps."""
-    from .pallas.ace_kernel import ace_spray_pallas
-
+def ace_with_samples_kernel(pages: jax.Array, sy: jax.Array, sx: jax.Array,
+                            slope: float, limit: float,
+                            interpret: bool = False) -> jax.Array:
+    """`ace_with_samples` through the Pallas spray kernel
+    (pallas/ace_kernel.py): one read of the page and one write of the
+    normalized field, instead of the scan's S read-modify-write sweeps
+    of (num, den). The sample gather and the rescale stay in XLA."""
     b, h, w, _ = pages.shape
     rgb = pages[..., :3].astype(jnp.float32)
-    planar = jnp.moveaxis(rgb, -1, 1)  # [B,3,H,W]
     flat = rgb.reshape(b, h * w, 3)
     sval = jnp.take_along_axis(flat, (sy * w + sx)[..., None], axis=1)  # [B,S,3]
-    num, invd = ace_spray_pallas(
-        planar, sy, sx, jnp.moveaxis(sval, -1, 1), float(slope), float(limit)
-    )
-    n = jnp.moveaxis(num, 1, -1) / (limit * invd)[..., None]
-    return jnp.concatenate([_rescale(n), pages[..., 3:]], axis=-1)
+    n = ace_spray(jnp.moveaxis(rgb, -1, 1), sy, sx, jnp.moveaxis(sval, -1, 1),
+                  float(slope), float(limit), interpret=interpret)
+    return jnp.concatenate([_rescale(jnp.moveaxis(n, 1, -1)), pages[..., 3:]],
+                           axis=-1)
+
+
+def _ace_shared(pages, sy, sx, slope, limit):
+    """Shared-spray ACE: the Triton kernel where the program is lowered
+    for CUDA, the XLA scan everywhere else (the CPU has no Triton)."""
+    return jax.lax.platform_dependent(
+        pages, sy, sx,
+        cuda=lambda p, y, x: ace_with_samples_kernel(p, y, x, slope, limit),
+        default=lambda p, y, x: ace_with_samples(p, y, x, slope, limit))
 
 
 def ace(
@@ -246,30 +264,20 @@ def ace(
     limit: float = C.ACE_DEFAULT_LIMIT,
     seed: int | jax.Array = C.ACE_DEFAULT_SEED,
     mode: str = "shared",
-    nb_threads: int = C.ACE_DEFAULT_NB_THREADS,  # API parity; ignored on TPU
+    nb_threads: int = C.ACE_DEFAULT_NB_THREADS,  # API parity; ignored
 ) -> jax.Array:
     del nb_threads
     key = jax.random.PRNGKey(seed) if isinstance(seed, int) else seed
-    from ..parallel.mesh import pallas_backend_ok
-
-    # (pallas spray kernel is per-page; fenced under rows-sharding where
-    # GSPMD must partition the XLA spray accumulation instead)
-    use_pallas = mode == "shared" and pallas_backend_ok()
-    return _ace_jit(pages, key, nb_samples, float(slope), float(limit), mode,
-                    use_pallas)
+    return _ace_jit(pages, key, nb_samples, float(slope), float(limit), mode)
 
 
-@partial(jax.jit, static_argnames=("nb_samples", "slope", "limit", "mode",
-                                   "use_pallas"))
-def _ace_jit(pages, key, nb_samples, slope, limit, mode, use_pallas=False):
+@partial(jax.jit, static_argnames=("nb_samples", "slope", "limit", "mode"))
+def _ace_jit(pages, key, nb_samples, slope, limit, mode):
     pages, unb = ensure_batched(pages)
     b, h, w, _ = pages.shape
     if mode == "shared":
         sy, sx = _sample_coords(key, b, nb_samples, h, w)
-        if use_pallas:
-            out = _ace_with_samples_pallas(pages, sy, sx, slope, limit)
-        else:
-            out = ace_with_samples(pages, sy, sx, slope, limit)
+        out = _ace_shared(pages, sy, sx, slope, limit)
     elif mode == "rolled":
         out = _ace_rolled(pages, key, nb_samples, slope, limit)
     elif mode == "per_pixel":

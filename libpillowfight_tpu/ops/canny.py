@@ -68,8 +68,7 @@ def _nms(intensity: jax.Array, gx: jax.Array, gy: jax.Array) -> jax.Array:
 def canny_gradients(gray: jax.Array):
     """(gx, gy) of the gaussian-smoothed page — the gradient stack canny
     AND swt share (swt re-deriving it separately cost a duplicate
-    gaussian+sobel pass, ~3.4 ms at A4: vmap'd and direct tracings
-    don't CSE)."""
+    gaussian+sobel pass: vmap'd and direct tracings don't CSE)."""
     smoothed = gaussian_on_matrix(
         gray, C.CANNY_GAUSSIAN_SIGMA, C.CANNY_GAUSSIAN_NB_STDDEV
     )
@@ -84,7 +83,7 @@ def canny_edge_mask_from_gradients(gx: jax.Array, gy: jax.Array) -> jax.Array:
     matrices, SURVEY.md §2.2). Shared spec with the oracle: integer
     compares behave identically in f32 and f64, so ridge ties break the
     same way on both sides — without this the smooth gaussian gradient
-    produces f32 false ties and systematically double-width TPU ridges.
+    produces f32 false ties and systematically double-width f32 ridges.
     """
     inten_q = jnp.round(normalize(jnp.hypot(gx, gy)))
     nms = _nms(inten_q, gx, gy)

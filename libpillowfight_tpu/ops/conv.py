@@ -1,17 +1,16 @@
 """Shared convolution primitives for the stencil kernels.
 
-TPU-native replacement for the reference's direct 2-D convolution
+Replacement for the reference's direct 2-D convolution
 (ref: src/pillowfight/util.c pf_dbl_matrix_convolution / _transpose —
 SURVEY.md §2.1). Boundary semantics are pinned to the oracle: zero padding,
 true convolution (kernel flipped), output same size as input.
 
-Gray planes are f32 [B, H, W]; we lower to XLA convs as NCHW with C=1 so
-the page width stays the minor (lane) dimension. NHWC with C=1 is a trap
-here: layout assignment can pad the size-1 trailing channel dim to the
-128-lane tile — a 128x memory blowup (observed: a 278 MB sobel plane
-assigned a 35.6 GB buffer at A4 x 8). Separable filters run as two
-rank-1 convs (row then column) — the same factorization the reference
-uses (conv, transpose, conv), minus the materialized transpose.
+Gray planes are f32 [B, H, W]. Small and separable stencils run as
+unrolled shifted multiply-adds, which XLA fuses with their producers and
+consumers; only a large dense kernel reaches lax.conv (NCHW, C=1).
+Separable filters run as two rank-1 passes (row then column) — the same
+factorization the reference uses (conv, transpose, conv), minus the
+materialized transpose.
 """
 
 from __future__ import annotations
@@ -37,11 +36,9 @@ def _shift2(x: jax.Array, dy: int, dx: int) -> jax.Array:
 
 def _conv_shifts(x: jax.Array, kernel: np.ndarray) -> jax.Array:
     """Correlation as an unrolled chain of shifted multiply-adds (taps in
-    row-major order, skipping zeros). Pure VPU elementwise — fuses with
-    producers/consumers and sidesteps lax.conv entirely: XLA's layout
-    assignment keeps choosing the size-1 channel dim of a single-plane
-    conv as the minor (lane) dim and padding it to the 128-lane tile, a
-    128x buffer blowup (observed 278 MB -> 35.6 GB at A4 x 8)."""
+    row-major order, skipping zeros). Pure elementwise — fuses with
+    producers/consumers, and a single-plane conv has too little work per
+    output to feed a convolution library."""
     kh, kw = kernel.shape
     out = None
     for i in range(kh):
@@ -81,6 +78,9 @@ def _conv(x: jax.Array, kernel) -> jax.Array:
         x[:, None], k, window_strides=(1, 1),
         padding=((kh // 2, (kh - 1) // 2), (kw // 2, (kw - 1) // 2)),
         dimension_numbers=_DN,
+        # f32 convs may otherwise run in TF32 on the GPU (~3 digits),
+        # which breaks the <= 1 LSB parity pin
+        precision=jax.lax.Precision.HIGHEST,
     )
     return y[:, 0]
 

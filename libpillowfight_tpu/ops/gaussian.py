@@ -2,8 +2,8 @@
 
 Separable 1-D Gaussian applied per RGB channel; alpha passes through.
 The reference convolves rows, transposes, convolves again; here the two
-rank-1 convs run directly on the TPU with no materialized transpose and
-XLA fuses the uint8<->f32 conversions into the conv loops.
+rank-1 convs run directly with no materialized transpose and XLA fuses
+the uint8<->f32 conversions into the conv loops.
 """
 
 from __future__ import annotations
@@ -18,24 +18,6 @@ from ..core.bitmap import ensure_batched, maybe_unbatch, to_uint8
 from .conv import gaussian_kernel_1d, sep_conv2d
 
 
-def _use_pallas() -> bool:
-    from ..parallel.mesh import pallas_backend_ok
-
-    # fenced under rows-sharding: the fused separable kernel assumes
-    # whole-page columns; GSPMD partitions the XLA rank-1 convs instead
-    return pallas_backend_ok()
-
-
-def _blur_planes(planes: jax.Array, sigma: float, nb_stddev: int) -> jax.Array:
-    """f32 [N,H,W] -> blurred f32 [N,H,W]; Pallas fused kernel on TPU
-    (one HBM sweep), XLA rank-1 convs elsewhere."""
-    if _use_pallas():
-        from .pallas.gaussian_kernel import gaussian_sep_pallas, gaussian_taps
-
-        return gaussian_sep_pallas(planes, gaussian_taps(sigma, nb_stddev))
-    return sep_conv2d(planes, gaussian_kernel_1d(sigma, nb_stddev))
-
-
 @partial(jax.jit, static_argnames=("sigma", "nb_stddev"))
 def gaussian(
     pages: jax.Array,
@@ -48,7 +30,7 @@ def gaussian(
     # vectorize the separable conv over the 3 channels via one reshape:
     b, h, w, _ = rgb.shape
     planes = jnp.moveaxis(rgb, -1, 1).reshape(b * 3, h, w)
-    blurred = _blur_planes(planes, sigma, nb_stddev)
+    blurred = sep_conv2d(planes, gaussian_kernel_1d(sigma, nb_stddev))
     out_rgb = to_uint8(jnp.moveaxis(blurred.reshape(b, 3, h, w), 1, -1))
     out = jnp.concatenate([out_rgb, pages[..., 3:]], axis=-1)
     return maybe_unbatch(out, unb)
@@ -61,4 +43,4 @@ def gaussian_on_matrix(
 ) -> jax.Array:
     """f32 [B,H,W] -> f32 [B,H,W]; internal helper reused by canny/swt
     (ref: gaussian.c pf_gaussian_on_matrix)."""
-    return _blur_planes(gray, sigma, nb_stddev)
+    return sep_conv2d(gray, gaussian_kernel_1d(sigma, nb_stddev))

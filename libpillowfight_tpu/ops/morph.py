@@ -1,6 +1,6 @@
 """Data-parallel morphology: reachability + connected components.
 
-TPU-native replacement for the reference's irregular, pointer-chasing code:
+Data-parallel replacement for the reference's irregular, pointer-chasing code:
 canny hysteresis BFS (ref: src/pillowfight/canny.c), blackfilter /
 noisefilter flood fills (ref: blackfilter.c, noisefilter.c), and SWT's
 connected-component pass (ref: swt.c) — SURVEY.md §3.2-§3.4.
@@ -22,29 +22,8 @@ All functions are batched over pages ([B, H, W]) and jit-safe.
 
 from __future__ import annotations
 
-import os
-
 import jax
 import jax.numpy as jnp
-
-
-def _use_pallas_flood() -> bool:
-    """On by default on TPU (PF_PALLAS_FLOOD=0 opts out): the Pallas band
-    kernels are verified exact on-chip at A4 page widths (the earlier
-    Mosaic page-width crash was fixed by the width-adaptive band height)
-    and cut the flood's HBM traffic from ~44 sweeps/round (XLA scans) to
-    2 band passes/round.
-
-    Fenced OFF inside parallel.mesh.spatial_sharding(): the band kernels
-    assume whole-page rows (sequential grid + VMEM carry), which GSPMD
-    cannot partition over a rows-sharded mesh; the XLA scan path is the
-    partitionable one. Pages-only sharding runs Pallas per-device via
-    shard_map (mesh.map_sharded_pages)."""
-    if os.environ.get("PF_PALLAS_FLOOD", "1") in ("0", "false"):
-        return False
-    from ..parallel.mesh import pallas_backend_ok
-
-    return pallas_backend_ok()
 
 
 # --------------------------------------------------------------------------
@@ -127,8 +106,7 @@ def _seg_or_scan_1d(mask: jax.Array, value: jax.Array, axis: int) -> jax.Array:
     """Segmented OR: value[i] |= any value in i's contiguous mask-run, along axis.
 
     Formulated as prefix sums instead of a tuple-carrier associative_scan
-    (4x faster on TPU: cumsum/cummax lower to XLA's native scan path).
-    With cs = prefix count of seeds and E = cs at the run start, "any seed
+    (two cumsums and two cummaxes per axis). With cs = prefix count of seeds and E = cs at the run start, "any seed
     in [start..i]" is cs[i] - E > 0; E is recovered scan-free as
     cummax(where(run_start, cs - seed, -1)) because cs is nondecreasing,
     so the max over starts <= i IS the value at the latest start."""
@@ -153,9 +131,9 @@ def _seg_min_doubling(values: jax.Array, linked_next: jax.Array, axis: int,
     linked_next[..., i, ...] means elements i and i+1 belong to the same
     run. Pointer-doubling formulation: with E = prefix count of gaps, the
     span [i-d, i] is gap-free iff E[i] == E[i-d], so each of the log2(n)
-    steps is two shifted compare+min pairs — plain VPU ops instead of a
-    tuple-carrier associative_scan (4x faster on TPU; the int32 cumsum
-    runs once)."""
+    steps is two shifted compare+min pairs — plain elementwise ops
+    instead of a tuple-carrier associative_scan (the int32 cumsum runs
+    once)."""
     ax = axis % values.ndim
     n = values.shape[ax]
     gaps = jnp.cumsum((~linked_next).astype(jnp.int32), axis=ax)
@@ -214,8 +192,10 @@ def _flood_fixed_point(seeds: jax.Array, mask: jax.Array, connectivity: int,
         r2 = round_(r)
         return r2, jnp.any(r2 != r), it + 1
 
-    r, _, _ = jax.lax.while_loop(cond, body, (round_(seeds), jnp.bool_(True), 1))
-    return r
+    with jax.named_scope("flood_fixed_point"):
+        r, _, rounds = jax.lax.while_loop(
+            cond, body, (round_(seeds), jnp.bool_(True), 1))
+    return r, rounds
 
 
 _COARSE = 4  # multigrid coarsening factor
@@ -251,20 +231,13 @@ def flood_reach(seeds: jax.Array, mask: jax.Array, connectivity: int = 8,
     pixels exceed `leap`), and the final full-res fixed point is exact
     regardless of the starting subset.
     """
+    return _flood(seeds, mask, connectivity, max_iters, leap)[0]
+
+
+def _flood(seeds, mask, connectivity, max_iters, leap):
+    """flood_reach's body. Also returns the rounds its fixed points ran,
+    int32 (coarse, full-resolution) — 0 coarse rounds on small pages."""
     assert leap == 1 or connectivity == 8, "leap requires 8-connectivity"
-    if connectivity == 8 and _use_pallas_flood():
-        from .pallas.flood_packed import flood_reach_packed, packed_fits
-
-        b, h, w = mask.shape
-        if packed_fits(h, w):
-            # bit-packed whole-page kernel: 32 rows/word, full fixed
-            # point in VMEM — ~8x faster than the band sweeps on v5e
-            return flood_reach_packed(seeds, mask, max_iters=max_iters,
-                                      leap=leap)
-        from .pallas.flood_kernel import flood_reach_pallas
-
-        return flood_reach_pallas(seeds, mask, max_iters=max_iters,
-                                  leap=leap)
     mask = mask.astype(bool)
     seeds = seeds.astype(bool) & mask
 
@@ -272,6 +245,7 @@ def flood_reach(seeds: jax.Array, mask: jax.Array, connectivity: int = 8,
     if max_iters is None:
         max_iters = h * w + 2
     c = _COARSE
+    coarse_rounds = jnp.int32(0)
     if h >= 4 * c and w >= 4 * c:
         ph, pw = -h % c, -w % c
         mp = jnp.pad(mask, ((0, 0), (0, ph), (0, pw)))
@@ -279,12 +253,14 @@ def flood_reach(seeds: jax.Array, mask: jax.Array, connectivity: int = 8,
         hc, wc = (h + ph) // c, (w + pw) // c
         blocks_all = mp.reshape(b, hc, c, wc, c).all(axis=(2, 4))
         seeds_any = sp.reshape(b, hc, c, wc, c).any(axis=(2, 4))
-        r_c = _flood_fixed_point(seeds_any & blocks_all, blocks_all,
-                                 connectivity, max_iters,
-                                 leap=(leap - 1) // c + 1)
+        r_c, coarse_rounds = _flood_fixed_point(
+            seeds_any & blocks_all, blocks_all, connectivity, max_iters,
+            leap=(leap - 1) // c + 1)
         up = jnp.repeat(jnp.repeat(r_c, c, axis=1), c, axis=2)[:, :h, :w]
         seeds = seeds | (up & mask)
-    return _flood_fixed_point(seeds, mask, connectivity, max_iters, leap=leap)
+    r, rounds = _flood_fixed_point(seeds, mask, connectivity, max_iters,
+                                   leap=leap)
+    return r, (coarse_rounds, rounds)
 
 
 # --------------------------------------------------------------------------
@@ -298,14 +274,7 @@ def label_components(mask: jax.Array, connectivity: int = 8,
 
     max_iters=None (default) iterates to the true fixed point (cap
     H*W + 2, see flood_reach — min-label propagation is simultaneous
-    flood from each component's min pixel, so the same bound applies).
-
-    On TPU the 8-connectivity case runs the Pallas doubling-scan band
-    kernel (see pallas/flood_kernel.py)."""
-    if connectivity == 8 and _use_pallas_flood():
-        from .pallas.flood_kernel import label_components_pallas
-
-        return label_components_pallas(mask, max_iters=max_iters)
+    flood from each component's min pixel, so the same bound applies)."""
     mask = mask.astype(bool)
     b, h, w = mask.shape
     if max_iters is None:
@@ -414,7 +383,7 @@ def small_cluster_mask(mask: jax.Array, k: int, connectivity: int = 8) -> jax.Ar
     """Pixels whose 8-connected cluster has <= k members. Exact, local,
     scan-free, loop-free — no global CC labeling.
 
-    This is the TPU-native form of the reference noisefilter's per-pixel
+    This is the data-parallel form of the reference noisefilter's per-pixel
     *bounded flood count* (ref: src/pillowfight/noisefilter.c — SURVEY.md
     §2.2): each pixel p carries a (2k+1)^2-bit bitboard of window offsets
     reachable from p within j steps through the mask; k bit-parallel
@@ -423,19 +392,11 @@ def small_cluster_mask(mask: jax.Array, k: int, connectivity: int = 8) -> jax.Ar
     (if the cluster has <= k pixels its diameter is < k, so the ball IS
     the cluster; if it has more, BFS layers stay nonempty so the ball has
     >= k+1 members). The bitboards are packed into ceil((2k+1)^2/32)
-    uint32 planes, so one step is ~100 fused VPU ops on [B,H,W] words —
+    uint32 planes, so one step is ~100 fused elementwise ops on [B,H,W] words —
     no while_loop, no segmented scans, no (2k+1)^2-shift label count.
     """
     assert connectivity == 8, "noisefilter clusters are 8-connected"
     mask = mask.astype(bool)
-    if k <= 15 and _use_pallas_flood():
-        # the XLA formulation below materializes its shifted word planes
-        # in HBM (~15 GB of temporaries at A4 x 8 — the round-2 bench
-        # OOM); the Pallas band kernel keeps every board in VMEM and
-        # moves exactly 2 int8 B/px of HBM traffic
-        from .pallas.noise_kernel import small_cluster_mask_pallas
-
-        return small_cluster_mask_pallas(mask, k)
     s = 2 * k + 1
     nb = s * s
     nw = (nb + 31) // 32

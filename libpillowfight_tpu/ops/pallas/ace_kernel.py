@@ -1,20 +1,22 @@
-"""Pallas TPU kernel for ACE's spray accumulation (the hot loop).
+"""ACE's spray accumulation as a Pallas kernel for NVIDIA GPUs (Triton route).
 
 Ref: src/pillowfight/ace.c pf_ace hot loop (SURVEY.md §3.1) — O(W*H*S)
 with random-access reads, split across pthreads in the reference.
 
-TPU re-design: the XLA fallback (ops/ace.py) streams the whole page once
-per sample (S full HBM sweeps). This kernel tiles the page into VMEM
-blocks and iterates all S samples while the tile stays resident, so HBM
-traffic drops from S*page to 1*page; the per-sample work is pure VPU
-math (iota-based distances + rsqrt + clamped difference).
+The XLA twin (`ops.ace.ace_with_samples`) is a `lax.scan` over the S
+samples whose (num, den) carries, 24 B/px of f32, go through device
+memory on every sample: memory-bound by a wide margin. Here each program
+owns one TILE_H x TILE_W tile of pixels, loads its three channels once,
+loops over all S samples with the four accumulators held in registers,
+and writes the normalized field n_c = num_c / den once. Programs are
+independent (nothing carries between blocks), so many tiles are in
+flight across the card. Each program loads its own (sy, sx, value)
+sample scalars: Triton has no scalar prefetch.
 
-Layout: planar f32 [B, 3, H, W] (channels leading so each [TH, TW] tile
-obeys the (8, 128) f32 tiling constraint), sample coords/values in SMEM.
-Distance terms are channel-independent and computed once per sample.
-Output: numerator per channel [B, 3, H, W] and shared inverse-distance
-sum [B, H, W]; the final white-point rescale (per-page min/max) runs in
-XLA where a cross-tile reduction is natural.
+Layout: planar f32 [B, 3, H, W]; sample coords i32 [B, S] and values
+f32 [B, 3, S] are read whole. H and W need not be tile multiples: the
+edge tiles mask their loads and stores. The sample gather and the
+per-page white-point rescale stay in plain JAX (ops/ace.py).
 """
 
 from __future__ import annotations
@@ -24,104 +26,77 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-TILE_H = 256
-TILE_W = 512
+# Triton wants power-of-two tiles. 32x128 with 8 warps keeps the seven
+# live [TILE_H, TILE_W] f32 tiles (3 channels + 4 accumulators) at
+# ~112 registers per thread.
+TILE_H = 32
+TILE_W = 128
+NUM_WARPS = 8
 
 
-def _ace_tile_kernel(sy_ref, sx_ref, sval_ref, img_ref, num_ref, invd_ref,
-                     *, slope, limit, tile_h, tile_w, n_samples):
+def _spray_kernel(sy_ref, sx_ref, sval_ref, img_ref, n_ref, *, h, w, slope,
+                  limit, n_samples):
     b = pl.program_id(0)
-    ti = pl.program_id(1)
-    tj = pl.program_id(2)
-    y0 = (ti * tile_h).astype(jnp.float32)
-    x0 = (tj * tile_w).astype(jnp.float32)
-
-    # SEPARABLE distance terms: dy depends only on the row, dx only on
-    # the column, so the squares live on [TH,1]/[1,TW] vectors and one
-    # broadcast add forms d2 — instead of two full-tile multiplies and
-    # an add per sample (measured 72 -> ~45 ms at 600dpi)
-    pyv = jax.lax.broadcasted_iota(
-        jnp.int32, (tile_h, 1), 0).astype(jnp.float32) + y0
-    pxv = jax.lax.broadcasted_iota(
-        jnp.int32, (1, tile_w), 1).astype(jnp.float32) + x0
-
-    img = img_ref[0]  # block [1, 3, TH, TW] -> [3, TH, TW] f32
+    rows = pl.program_id(1) * TILE_H + jnp.arange(TILE_H, dtype=jnp.int32)
+    cols = pl.program_id(2) * TILE_W + jnp.arange(TILE_W, dtype=jnp.int32)
+    inside = (rows < h)[:, None] & (cols < w)[None, :]
+    img = [plgpu.load(img_ref.at[c], mask=inside, other=0.0)
+           for c in range(3)]
+    # separable distance: dy lives on a column vector, dx on a row vector
+    py = rows.astype(jnp.float32)[:, None]
+    px = cols.astype(jnp.float32)[None, :]
 
     def body(s, carry):
         n0, n1, n2, invd = carry
-        syf = sy_ref[b, s].astype(jnp.float32)
-        sxf = sx_ref[b, s].astype(jnp.float32)
-        dyv = pyv - syf
-        dxv = pxv - sxf
-        d2 = dyv * dyv + dxv * dxv  # broadcast [TH,TW]
-        inv_d = jnp.minimum(jax.lax.rsqrt(jnp.maximum(d2, 1e-12)), 1.0)
-        # per-channel accumulators: a stacked [3,TH,TW] add would
-        # materialize an extra full-tile temp every sample
-        outs = []
+        dy = py - sy_ref[b, s].astype(jnp.float32)
+        dx = px - sx_ref[b, s].astype(jnp.float32)
+        # d2 is an integer: 1/max(d, 1) == rsqrt(max(d2, 1))
+        inv_d = jax.lax.rsqrt(jnp.maximum(dy * dy + dx * dx, 1.0))
+        out = []
         for c, acc in enumerate((n0, n1, n2)):
-            sv = sval_ref[b, c, s]
-            delta = jnp.clip(slope * (img[c] - sv), -limit, limit)
-            outs.append(acc + delta * inv_d)
-        return outs[0], outs[1], outs[2], invd + inv_d
+            delta = jnp.clip(slope * (img[c] - sval_ref[b, c, s]),
+                             -limit, limit)
+            out.append(acc + delta * inv_d)
+        return out[0], out[1], out[2], invd + inv_d
 
-    zero = jnp.zeros((tile_h, tile_w), jnp.float32)
-    n0, n1, n2, invd = jax.lax.fori_loop(
-        0, n_samples, body, (zero, zero, zero, zero))
-    num_ref[0] = jnp.stack([n0, n1, n2], axis=0)
-    invd_ref[0] = invd
+    zero = jnp.zeros((TILE_H, TILE_W), jnp.float32)
+    *num, invd = jax.lax.fori_loop(0, n_samples, body,
+                                   (zero, zero, zero, zero))
+    den = limit * invd
+    for c in range(3):
+        plgpu.store(n_ref.at[c], num[c] / den, mask=inside)
 
 
 @functools.partial(jax.jit, static_argnames=("slope", "limit", "interpret"))
-def ace_spray_pallas(planar: jax.Array, sy: jax.Array, sx: jax.Array,
-                     sval: jax.Array, slope: float, limit: float,
-                     interpret: bool = False):
+def ace_spray(planar: jax.Array, sy: jax.Array, sx: jax.Array,
+              sval: jax.Array, slope: float, limit: float,
+              interpret: bool = False) -> jax.Array:
     """planar f32 [B,3,H,W]; sy/sx i32 [B,S]; sval f32 [B,3,S].
 
-    Returns (num [B,3,H,W], invd [B,H,W]) with
+    Returns n f32 [B,3,H,W] = num_c / den with
       num_c = sum_s clip(slope*(I_c - I_c(s)), +-limit) / d(p,s)
-      invd  = sum_s 1 / d(p,s)            (d = euclidean, min 1)
+      den   = sum_s limit / d(p,s)           (d = euclidean, min 1)
+    `interpret=True` runs the kernel through the Pallas interpreter
+    (the CPU test path); otherwise it compiles through Triton.
     """
-    b_dim, _, h, w = planar.shape
-    s_dim = sy.shape[1]
-    tile_h = min(TILE_H, h)
-    tile_w = min(TILE_W, w)
-    # pad to tile multiples (wrapper slices the pad off)
-    ph = -h % tile_h
-    pw = -w % tile_w
-    if ph or pw:
-        planar = jnp.pad(planar, ((0, 0), (0, 0), (0, ph), (0, pw)))
-    hp, wp = h + ph, w + pw
-
+    b, _, h, w = planar.shape
     kernel = functools.partial(
-        _ace_tile_kernel, slope=float(slope), limit=float(limit),
-        tile_h=tile_h, tile_w=tile_w, n_samples=s_dim,
-    )
-    grid = (b_dim, hp // tile_h, wp // tile_w)
-    num, invd = pl.pallas_call(
+        _spray_kernel, h=h, w=w, slope=float(slope), limit=float(limit),
+        n_samples=sy.shape[1])
+    tile = pl.BlockSpec((None, 3, TILE_H, TILE_W),
+                        lambda b, i, j: (b, 0, i, j))
+    whole = pl.BlockSpec()
+    return pl.pallas_call(
         kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # sy [B,S]
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # sx [B,S]
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # sval [B,3,S]
-            pl.BlockSpec((1, 3, tile_h, tile_w),
-                         lambda b, i, j: (b, 0, i, j),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, 3, tile_h, tile_w),
-                         lambda b, i, j: (b, 0, i, j),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, tile_h, tile_w),
-                         lambda b, i, j: (b, i, j),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((b_dim, 3, hp, wp), jnp.float32),
-            jax.ShapeDtypeStruct((b_dim, hp, wp), jnp.float32),
-        ],
+        grid=(b, pl.cdiv(h, TILE_H), pl.cdiv(w, TILE_W)),
+        in_specs=[whole, whole, whole, tile],
+        out_specs=tile,
+        out_shape=jax.ShapeDtypeStruct(planar.shape, jnp.float32),
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=1),
+        backend="triton",
         interpret=interpret,
+        name="ace_spray",
     )(sy, sx, sval, planar)
-    return num[:, :, :h, :w], invd[:, :h, :w]

@@ -4,10 +4,10 @@ Ref: src/pillowfight/swt.c pf_swt (a port of CCV/DetectText) — SURVEY.md
 §2.2/§3.3. The reference walks rays with pointer arithmetic, qsorts each
 ray for the median clamp, and merges connected components sequentially.
 
-TPU re-design (everything static-shaped, jit-safe, batched over pages).
-Random-access gathers/scatters run at ~20-50M elem/s on TPU — each
-1M-element gather costs as much as ~500 dense page sweeps — so the ray
-machinery is reformulated to be *dense and shift-based*:
+Re-design (everything static-shaped, jit-safe, batched over pages).
+Random-access gathers and scatters cost far more per element than dense
+page sweeps, so the ray machinery is reformulated to be *dense and
+shift-based*:
 
 1. Edge map + gradients come from the shared canny/sobel/gaussian stack.
 2. Ray directions are quantized to 16 primitive integer vectors
@@ -335,8 +335,8 @@ def _swt_maps_one(gray, edges, gx, gy, max_len):
     # along the same segment via a payload-carrying chain.
     #
     # FULLY DENSE, no compaction: the earlier gather formulation paid
-    # ~78 ms for a page-scale jnp.nonzero plus ~68 ms for a [17, R]
-    # random gather PER SIGN on v5e. Here sample j of an anchor's ray
+    # for a page-scale jnp.nonzero plus a [17, R] random gather PER
+    # SIGN. Here sample j of an anchor's ray
     # is swt[anchor + j*v_k] for FIXED offsets j = 0.._MED_SAMPLES-1 —
     # a per-class dense shift selected per pixel by the anchor's class
     # plane, valid while j <= u (inside the ray). For rays of u+1 <=
@@ -440,8 +440,7 @@ def _seg_chain(lab, payloads, ops, reverse=False, max_span=None):
 def _median_gray(gray):
     """Exact jnp.median of a gray plane [B,H,W] whose values are k/3 for
     integer k in 0..765 (words_to_gray output), via histogram binary
-    search — ~10 fused compare+reduce sweeps instead of a full-page sort
-    (lax.sort of 8.7M elements measured ~200 ms on v5e; this is ~6 ms).
+    search — ~10 fused compare+reduce sweeps instead of a full-page sort.
     Returns [B] f32, bit-identical to jnp.median's arithmetic."""
     b, h, w = gray.shape
     s3 = jnp.round(gray * 3.0).astype(jnp.int32)
@@ -486,10 +485,9 @@ def _letter_mask_one(gray, swt_minus, swt_plus, med, max_letters, max_runs):
     DISJOINT, so both passes share one combined SWT plane; CC links add
     a same-polarity condition, making each component single-polarity.
 
-    Statistics design — ROW-RUN aggregation. Earlier formulations were
-    measured (jax.profiler device trace, A4 on v5e): per-pixel
-    scatter-adds ~370 ms; full-page sort grouping ~450 ms (an 8.7M-
-    element lax.sort alone is ~200 ms). Here every maximal same-label
+    Statistics design — ROW-RUN aggregation. Earlier formulations used
+    per-pixel scatter-adds or a full-page sort to group pixels by
+    label; both walk every pixel irregularly. Here every maximal same-label
     row run pre-aggregates its pixels with dense segmented doubling
     chains along rows (runs are <= a stroke crossing wide, so the
     chains stop at 2^9), runs compact through one nonzero (~#stroke
@@ -541,8 +539,8 @@ def _letter_mask_one(gray, swt_minus, swt_plus, med, max_letters, max_runs):
 
     # ---- compact runs (the only page-scale irregular op). Sort-based:
     # flat indices of run starts ascend, n pads the tail — identical
-    # row-major order to jnp.nonzero at ~1/10 the cost (nonzero's
-    # internal scatter walks every pixel: 78 ms vs 8 ms at A4 on v5e)
+    # row-major order to jnp.nonzero without nonzero's internal
+    # scatter over every pixel
     n_runs = jnp.sum(run_start.astype(jnp.int32))
     flat_idx = jax.lax.sort(
         jnp.where(run_start.reshape(-1), jax.lax.iota(jnp.int32, n),
@@ -561,7 +559,7 @@ def _letter_mask_one(gray, swt_minus, swt_plus, med, max_letters, max_runs):
     # ---- per-component statistics in SORTED-SEGMENT form. The earlier
     # formulation scattered 7 per-run values into flat-label-indexed
     # [H*W+1] tables and gathered decisions back — 8 R-sized scatters +
-    # gathers at ~2.7 ms each on v5e. Here ONE stable multi-payload sort
+    # gathers. Here ONE stable multi-payload sort
     # groups runs by label; per-component reductions become segmented
     # doubling scans over the sorted 1-D array (cheap [R] vector ops),
     # decisions broadcast back through the segment, and the only
@@ -660,7 +658,7 @@ def _letter_mask_one(gray, swt_minus, swt_plus, med, max_letters, max_runs):
 def _letter_mask(gray, swt_minus, swt_plus, max_letters, max_runs):
     """Batched letter pass: per-page core under lax.map (sequential per
     page — the per-page program lowers exactly like the unbatched one;
-    vmap of the irregular ops measured ~5x slower on v5e)."""
+    a vmap batches the irregular ops into larger sorts and scatters)."""
     med = _median_gray(gray)
 
     def one(args):
@@ -679,7 +677,7 @@ def _letter_mask(gray, swt_minus, swt_plus, max_letters, max_runs):
 def _boxes_on_mask(boxes, boxes_ok, h, w):
     """Box-perimeter mask bool [B,H,W] from boxes int32 [B,N,4] =
     (y0, y1, x0, x1) and boxes_ok bool [B,N]. One cheap fori_loop
-    iteration per candidate slot (pure VPU compares, no materialized
+    iteration per candidate slot (pure elementwise compares, no materialized
     [N,H,W] tensor). Ref: swt.c PF_SWT_OUTPUT_ORIGINAL_BOXES."""
     b = boxes.shape[0]
     ys = jax.lax.broadcasted_iota(jnp.int32, (h, w), 0)[None]

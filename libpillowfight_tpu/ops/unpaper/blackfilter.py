@@ -4,7 +4,7 @@ Erases solid black scan artifacts (borders, punch holes): any sliding
 scan square whose dark-pixel ratio exceeds the scan threshold seeds a
 flood fill over the connected dark region, which is wiped to white.
 
-TPU re-design: the square sweep is one strided reduce_window; the flood
+Re-design: the square sweep is one strided reduce_window; the flood
 fill is morph.flood_reach's exact fixed point — seeds are the dark pixels
 inside triggered squares, the fill domain is the dark mask.
 """

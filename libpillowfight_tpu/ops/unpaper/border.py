@@ -5,7 +5,7 @@ columns at stride `step`, counting dark pixels per strip; the border ends
 at the first strip whose count exceeds `threshold`. The detected border
 area is wiped to white.
 
-TPU re-design: strip counts come from one cumulative sum of per-row /
+Re-design: strip counts come from one cumulative sum of per-row /
 per-column dark counts (two reductions), the 'first strip exceeding'
 search is an argmax over a [B, K] table, and the wipe is an iota
 comparison — the whole filter is branch-free and batched over pages.

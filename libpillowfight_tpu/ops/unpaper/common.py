@@ -26,8 +26,7 @@ from ...core.bitmap import (
 def apply_wipe(pages: jax.Array, wipe_fn, **kwargs) -> jax.Array:
     """Shared single-filter wrapper: uint8 RGBA [B,H,W,4] or uint32
     words [B,H,W] (or single page) in, same form out. Internally runs on
-    u32 words (the u8 last-dim-4 layout wastes TPU lanes — see
-    bitmap.pages_to_words)."""
+    u32 words (see bitmap.pages_to_words)."""
     pages, unb = ensure_batched(pages)
     in_words = pages.dtype == jnp.uint32
     words = pages if in_words else pages_to_words(pages)
@@ -90,21 +89,16 @@ def _window_sel(n: int, size: int, step: int) -> jax.Array:
 
 
 def block_counts(x: jax.Array, size: int, step: int) -> jax.Array:
-    """block_sums for 0/1 (bool) planes: H pass as a strided
-    reduce_window (runs in the plane's natural layout), W pass as ONE
-    MXU matmul with a 0/1 selection matrix on the step-shrunk plane.
+    """block_sums for 0/1 (bool) planes: the H pass is a matmul with a
+    0/1 selection matrix when the block grid is short (nby <= 256) and a
+    strided int8 reduce_window otherwise; the W pass is a matmul on the
+    step-shrunk plane. Whether these contractions pay on the GPU is not
+    measured yet (ROADMAP design item 3).
 
-    Why not two reduce_windows: the W-axis reduce_window pins a
-    different layout than the H one, and XLA inserts a full-plane bool
-    relayout copy between them (measured ~2 ms extra at A4x8 on v5e —
-    ~3x the whole statistic). The H pass picks between a reduce_window
-    (natural layout) and an MXU contraction by output size: the MXU is
-    dense over the sparse selection, so its cost scales with nby (fine
-    for blurfilter's 69 block rows, ~0.5 ms of waste for blackfilter's
-    698). The W pass is always a small layout-free matmul. Exact: 0/1
-    values/products are exact in bf16, intermediate sums <= size <= 256
-    are exact bf16 integers, and the f32 accumulator is integer-exact
-    far beyond any window count."""
+    Exact on every backend, the GPU's tensor cores included: the bf16
+    operands are 0/1 values or window counts <= size <= 256, all exact
+    bf16 integers; every product is exact; and the f32 accumulator is
+    integer-exact far beyond any window count."""
     hn, wn = x.shape[1], x.shape[2]
     nby = (hn - size) // step + 1
     assert size <= 256  # intermediate sums must stay exact in bf16
@@ -115,10 +109,8 @@ def block_counts(x: jax.Array, size: int, step: int) -> jax.Array:
             preferred_element_type=jnp.float32)  # [B, W, nby]
         y = y.astype(jnp.bfloat16).transpose(0, 2, 1)  # [B, nby, W]
     else:
-        # i8 accumulation (window counts <= size <= 127): the f32 form
-        # made XLA materialize a full-resolution f32 copy of the bool
-        # plane as the reduce_window input (278 MB at A4x8); the i8
-        # plane is 4x smaller and the pred->i8 convert fuses
+        # i8 accumulation (window counts <= size <= 127): a quarter of
+        # the bytes of an f32 input plane, and the pred->i8 convert fuses
         assert size <= 127
         y = jax.lax.reduce_window(
             x.astype(jnp.int8), jnp.int8(0), jax.lax.add,
@@ -131,36 +123,15 @@ def block_counts(x: jax.Array, size: int, step: int) -> jax.Array:
 
 def line_counts(dark: jax.Array) -> tuple[jax.Array, jax.Array]:
     """(row_counts [B,H], col_counts [B,W]) f32 dark-pixel counts.
-
-    On TPU: one Pallas kernel reads the plane once and accumulates both
-    reductions in VMEM (~1 B/px total). Every XLA formulation tried
-    pays extra: `jnp.sum` over lanes propagates an H-minor layout
-    preference to the jit entry (full-plane relayout copies, ~1.7 ms at
-    A4x8), and a ones-matrix MXU contraction gets rewritten into a
-    batch-bitpack + custom-call (~0.4 ms/plane). Elsewhere: the
-    ones-matrix contraction (layout-neutral)."""
-    from ...parallel.mesh import pallas_backend_ok
-
-    if pallas_backend_ok():
-        from ..pallas.linecount_kernel import line_counts_pallas
-
-        return line_counts_pallas(dark)
-    b, h, w = dark.shape
-    xb = dark.astype(jnp.bfloat16)
-    ones_w = jnp.ones((w, 128), jnp.bfloat16)
-    ones_h = jnp.ones((h, 128), jnp.bfloat16)
-    rows = jax.lax.dot_general(xb, ones_w, (((2,), (0,)), ((), ())),
-                               preferred_element_type=jnp.float32)[..., 0]
-    cols = jax.lax.dot_general(xb, ones_h, (((1,), (0,)), ((), ())),
-                               preferred_element_type=jnp.float32)[..., 0]
-    return rows, cols
+    Integer sums, then f32: exact (counts are far below 2**24)."""
+    d = dark.astype(jnp.int32)
+    return (d.sum(axis=2).astype(jnp.float32),
+            d.sum(axis=1).astype(jnp.float32))
 
 
 def _trailing_or(x: jax.Array, size: int, axis: int) -> jax.Array:
     """out[i] = any(x[i-size+1 : i+1]) along axis. OR is idempotent, so
-    doubling shifts give O(log size) passes — stride-1 reduce_window
-    lowers to `size` taps per pixel on TPU (10^2 for blurfilter blocks),
-    this is ~7."""
+    doubling shifts give O(log size) passes instead of `size` taps."""
     if size <= 0:
         return jnp.zeros_like(x)
     ax = axis % x.ndim
@@ -187,8 +158,8 @@ def _expand_axis(g: jax.Array, n_pix: int, size: int, step: int,
     over a stride cell (hi at small r, lo at large r), so coverage =
     phase-select between two trailing-OR grids upsampled by `step` —
     all the OR work happens at block-grid resolution (~size/step taps on
-    a W/step-wide plane) instead of the old pixel-resolution doubling
-    chain (~2 log(size) full-plane passes, 27 ms at A4x8 on v5e)."""
+    a W/step-wide plane) instead of a pixel-resolution doubling chain
+    (~2 log(size) full-plane passes)."""
     ax = axis % g.ndim
     nb = g.shape[ax]
     q_n = (n_pix - 1) // step + 1
@@ -213,12 +184,11 @@ def _expand_axis(g: jax.Array, n_pix: int, size: int, step: int,
 
 def _expand_lanes_mm(g: jax.Array, n_pix: int, size: int, step: int
                      ) -> jax.Array:
-    """Lane-axis coverage expansion as ONE MXU matmul with a 0/1
-    expansion matrix (phase-select folded in): out[..., x] =
-    trailing-OR grid at x//step, picking the hi/lo tap count by the
-    stride phase. The jnp.repeat formulation lowers to a bitcast
-    reshape whose H-minor layout costs a full-plane pred relayout copy
-    per call site (~0.3 ms each at A4x8); matmuls are layout-neutral."""
+    """Last-axis coverage expansion as ONE matmul with a 0/1 expansion
+    matrix (phase-select folded in): out[..., x] = trailing-OR grid at
+    x//step, picking the hi/lo tap count by the stride phase. Exact on
+    the GPU's tensor cores too: 0/1 operands, and each output sums at
+    most two 0/1 products."""
     import numpy as np
 
     ax = g.ndim - 1
@@ -261,7 +231,7 @@ def coverage_from_blocks(blocks: jax.Array, shape: tuple[int, int, int],
     """Inverse of block_sums' footprint: bool grid [B,nby,nbx] -> bool pixel
     mask [B,H,W] true where the pixel is covered by any selected block.
     Separable: expand rows at grid width first (cheap), then columns via
-    an MXU matmul (see _expand_lanes_mm)."""
+    a matmul (see _expand_lanes_mm)."""
     b, h, w = shape
     rows = _expand_axis(blocks, h, size, step, 1)
     return _expand_lanes_mm(rows, w, size, step)

@@ -14,7 +14,7 @@ edge. Dark = gray < 0.33*255. Multiple start points (upstream masks.c
 accepts user-supplied scan points) grow one rectangle each; the kept
 content area is their union (PARITY.md #11).
 
-TPU re-design: per-direction strip ratios come from one cumsum of dark
+Re-design: per-direction strip ratios come from one cumsum of dark
 row/column counts; the outward search is an argmax over a [B, K] table;
 the wipe is an iota comparison. Fully batched, no data-dependent shapes;
 start points are static call parameters (part of the jit key), so N

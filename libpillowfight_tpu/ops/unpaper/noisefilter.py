@@ -3,10 +3,10 @@
 Erases speckle noise: every 8-connected cluster of non-white pixels with
 at most `intensity` members is wiped to white.
 
-TPU re-design: the reference's per-pixel bounded flood count becomes a
+Re-design: the reference's per-pixel bounded flood count becomes a
 bit-parallel bounded flood (morph.small_cluster_mask): every pixel
 carries a packed bitboard of locally reachable window offsets, k fused
-VPU dilation steps compute each pixel's exact graph-ball size, and the
+elementwise dilation steps compute each pixel's exact graph-ball size, and the
 <= intensity decision falls out with no global labeling, no while_loop,
 and no scatter — every cluster on the page is measured simultaneously.
 """

@@ -2,7 +2,7 @@
 
 SURVEY.md §5 (checkpoint/resume, metrics, failure handling): the
 reference is a synchronous single-image library with none of this; the
-TPU framework's batch runner provides
+batch runner provides
   * page-index manifest for resume (crash -> rerun skips finished chunks),
   * page sharding over the device mesh (DP over the pages axis),
   * structured throughput metrics (pages/sec, MP/s, per-chunk timings),
@@ -33,11 +33,11 @@ def map_chunked(fn, pages: jax.Array, chunk: int) -> jax.Array:
     """Apply fn over the batch axis in device-resident chunks of `chunk`
     pages, inside one jittable computation (lax.map over the chunk axis).
 
-    Bounds peak HBM by the per-chunk live set instead of the whole
-    batch's: a 64-page A4 canny holds ~6 full-res f32 planes (13+ GB at
-    batch 64, an OOM on one v5e chip) but streams fine 16 pages at a
-    time. Filters here are bandwidth-bound, so chunks big enough to fill
-    the VPU (>= ~8 A4 pages) cost no throughput.
+    Bounds peak device memory by the per-chunk live set instead of the
+    whole batch's: a 64-page A4 canny holds ~6 full-res f32 planes
+    (~13 GB of live planes at batch 64) but streams 16 pages at a time
+    in a quarter of that. The chunk that fits best on a given card is
+    not measured yet.
 
     The batch must divide evenly into chunks (pad the tail upstream —
     BatchRunner already chunks its manifest this way)."""
@@ -189,7 +189,9 @@ class BatchRunner:
         for attempt in range(self.max_retries + 1):
             try:
                 t0 = time.perf_counter()
-                sharded = shard_pages(jax.numpy.asarray(pages), self.mesh)
+                # host array straight to the mesh: each device receives
+                # only its own shard (no staging through device 0)
+                sharded = shard_pages(pages, self.mesh)
                 # wait for the H2D transfer ONLY (not the compute): the
                 # source's double buffer may be recycled as soon as we
                 # return, and this wait runs while the device still
@@ -220,7 +222,7 @@ class BatchRunner:
                     raise
                 m.retries += 1
                 pages = self._pad_to_mesh(np.asarray(source(info["idx"])))
-                sharded = shard_pages(jax.numpy.asarray(pages), self.mesh)
+                sharded = shard_pages(pages, self.mesh)
                 info["out"] = self.fn(sharded)
         dt = time.perf_counter() - info["t0"]
         n = info["n"]

@@ -4,13 +4,12 @@ The reference has no distribution at all (single-process C, one image per
 call; ACE's pthreads are the only parallelism). Here distribution is
 first-class: pages shard over a ("pages",) data axis and, for huge pages,
 rows of one page shard over a ("rows",) spatial axis with halo exchange
-(see halo.py). Collectives ride ICI via jax.sharding + shard_map.
+(see halo.py). Collectives go through jax.sharding + shard_map; every
+device reaches every other at the same rate, so the mesh follows the
+algorithm alone.
 """
 
 from __future__ import annotations
-
-import contextlib
-import contextvars
 
 import jax
 import numpy as np
@@ -19,65 +18,18 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 PAGES_AXIS = "pages"
 ROWS_AXIS = "rows"
 
-# Trace-time flag: rows-sharded (spatial) execution in progress. The
-# Pallas band kernels walk whole-page bands through a sequential grid
-# with VMEM carries — GSPMD has no partitioning rule for that, so under
-# a rows-sharded mesh every morph op must take the XLA scan path (which
-# GSPMD partitions correctly, inserting the cross-shard collectives).
-# Pages-only sharding goes through shard_map (map_sharded_pages), where
-# each device runs the full per-page program locally and Pallas is safe.
-_SPATIAL = contextvars.ContextVar("pf_spatial_sharding", default=False)
-
-
-@contextlib.contextmanager
-def spatial_sharding():
-    """Mark the enclosed trace as rows-sharded: Pallas whole-page band
-    kernels are fenced off in favor of GSPMD-partitionable XLA paths."""
-    tok = _SPATIAL.set(True)
-    try:
-        yield
-    finally:
-        _SPATIAL.reset(tok)
-
-
-def in_spatial_sharding() -> bool:
-    return _SPATIAL.get()
-
-
-def pallas_backend_ok() -> bool:
-    """True when Mosaic-compiled Pallas kernels can execute here: an
-    accelerator backend, no enclosing jax.default_device(cpu) context
-    (default_backend() ignores it — the on-TPU lane's CPU-reference arm
-    hit Mosaic-on-CPU errors without this check), and not under rows
-    (spatial) sharding, which GSPMD cannot partition the sequential-grid
-    band kernels for."""
-    if in_spatial_sharding():
-        return False
-    dev = jax.config.jax_default_device
-    if dev is not None:
-        # jax accepts both Device objects and platform strings here
-        # (jax.default_device("cpu")); handle both forms
-        platform = dev.lower() if isinstance(dev, str) else getattr(
-            dev, "platform", None)
-        if platform == "cpu":
-            return False
-    return jax.default_backend() not in ("cpu",)
-
 
 def map_sharded_pages(fn, mesh: Mesh):
     """Data-parallel page map: shard_map over the pages axis; each device
-    runs `fn` on its local page shard (Pallas kernels run per-device, no
-    GSPMD partitioning of the kernels themselves). The rows axis must be
-    size 1 — spatial sharding goes through GSPMD + spatial_sharding()."""
-    from jax.experimental.shard_map import shard_map
-
+    runs `fn` on its local page shard. The rows axis must be size 1 —
+    spatial sharding goes through GSPMD (jit over page_sharding)."""
     if mesh.shape[ROWS_AXIS] != 1:
         raise ValueError("map_sharded_pages needs a pages-only mesh")
-    return shard_map(
+    return jax.shard_map(
         fn, mesh=mesh,
         in_specs=P(PAGES_AXIS),
         out_specs=P(PAGES_AXIS),
-        check_rep=False,
+        check_vma=False,
     )
 
 
@@ -100,12 +52,7 @@ def replicated(mesh: Mesh) -> NamedSharding:
     return NamedSharding(mesh, P())
 
 
-def shard_pages(pages: jax.Array, mesh: Mesh) -> jax.Array:
+def shard_pages(pages, mesh: Mesh) -> jax.Array:
     """Place a page batch on the mesh (B over pages-axis, H over rows-axis).
-
-    NOT layout-pinned: the unpinned jit a BatchRunner compiles keys its
-    persistent-cache entry without the arg layout (jax 0.9 + this
-    backend), so mixing pinned arrays with unpinned jits can replay a
-    stale executable and fail at runtime. Benchmarks pin BOTH sides
-    (bitmap.put_row_major + explicit in_shardings/out_shardings)."""
+    A host (numpy) batch goes to each device as that device's shard only."""
     return jax.device_put(pages, page_sharding(mesh))

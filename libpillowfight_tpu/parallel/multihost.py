@@ -1,8 +1,8 @@
 """Multi-host execution: distributed init, cross-host mesh, heartbeats.
 
 SURVEY.md §2.4/§5 — the reference is single-process with no failure
-handling; the TPU framework targets pod slices: DP over hosts via a
-("host", "chip") mesh on DCN+ICI, with per-host heartbeating so a lost
+handling; here DP runs over hosts via a ("host", "chip") mesh, with
+per-host heartbeating so a lost
 host surfaces as a detectable stall instead of a silent hang.
 """
 

@@ -4,7 +4,7 @@ SURVEY.md §2.4 (PP row): the reference runs filters sequentially with a
 full-image barrier and a materialized bitmap between each pair. Here a
 pipeline is a *spec* (tuple of (filter_name, frozen-kwargs) — hashable,
 so it is the jit static-argument key, SURVEY.md §5 config item) compiled
-into ONE XLA program: intermediates stay in HBM/VMEM, elementwise stages
+into ONE XLA program: intermediates stay on the device, elementwise stages
 fuse into the convs, and uint8<->f32 conversions between stages collapse.
 
 The default `DOCUMENT_CLEANUP` chain mirrors the reference README's
@@ -133,7 +133,7 @@ def _run_unpaper_group(pages: jax.Array, group) -> jax.Array:
 
     Accepts uint8 RGBA [B,H,W,4] or uint32 words [B,H,W]; returns the
     same form. Internally everything runs on u32 words (see
-    bitmap.pages_to_words — the u8 last-dim-4 layout wastes TPU lanes)."""
+    bitmap.pages_to_words)."""
     # a non-default blackfilter black_threshold would invalidate the
     # shared dark plane; fall back to gray threading for that rare case
     for name, kwargs in group:
@@ -149,8 +149,8 @@ def _run_unpaper_group(pages: jax.Array, group) -> jax.Array:
     nonwhite0 = nonwhite_mask(gray0)
 
     # all updates are LAZY expressions over the accumulated wipe list —
-    # XLA fuses the boolean algebra into each consumer's first read pass
-    # (and into the pallas kernels' input-materialization pass), instead
+    # XLA fuses the boolean algebra into each consumer's first read pass,
+    # instead
     # of paying a materialized read-modify-write plane per stage
     wipes: list = []
 

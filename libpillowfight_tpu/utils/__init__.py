@@ -1,4 +1,4 @@
-"""Utilities: oracle bindings, profiling helpers."""
+"""Utilities: oracle bindings, run-time setup (compile cache, card info)."""
 
 from . import oracle
 

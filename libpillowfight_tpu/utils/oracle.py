@@ -2,7 +2,7 @@
 
 The oracle replaces the absent upstream C sources as the golden-output
 authority (SURVEY.md §7 step 0). Golden tests feed identical inputs to
-the TPU kernels and these functions and compare per-pixel.
+the JAX kernels and these functions and compare per-pixel.
 """
 
 from __future__ import annotations

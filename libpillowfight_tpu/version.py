@@ -11,7 +11,7 @@ from __future__ import annotations
 import os
 import subprocess
 
-__version__ = "0.3.0.tpu1"
+__version__ = "0.4.0"
 
 
 def get_version() -> str:

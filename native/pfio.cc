@@ -1,15 +1,15 @@
 // pfio — native page-IO runtime for libpillowfight_tpu.
 //
 // The reference ships its native layer as libpillowfight.so (C kernels +
-// CPython extension; SURVEY.md §1 Build A/B). In the TPU framework the
-// kernels live on-device (Pallas/XLA), so the native layer moves to where
-// the host actually does work: feeding the chips. This translation unit
+// CPython extension; SURVEY.md §1 Build A/B). Here the kernels live
+// on-device (XLA/Pallas), so the native layer moves to where the host
+// actually does work: feeding the devices. This translation unit
 // implements
 //   * PNM decode (P5/P6 binary, P2/P3 ascii) -> RGBA8,
 //   * PPM/PGM encode (the ref's pf_write_bitmap_to_ppm debug path,
 //     SURVEY.md §2.1), and
 //   * a threaded prefetch pool: N worker threads decode + pad pages to a
-//     uniform [H,W] into caller-visible batch buffers while the TPU is
+//     uniform [H,W] into caller-visible batch buffers while the device is
 //     busy with the previous chunk (overlap host IO with device compute,
 //     SURVEY.md §7 "hard parts" item 5).
 //

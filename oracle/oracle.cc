@@ -4,7 +4,7 @@
 // SURVEY.md §0), so golden-output parity is pinned against THIS native
 // reimplementation, written from the algorithm specs in SURVEY.md §2 with
 // all constants taken from the generated constants.h (single source of
-// truth shared with the TPU kernels).
+// truth shared with the JAX kernels).
 //
 // Build: make  ->  libpf_oracle.so (ctypes, golden tests) + pf_oracle (CLI
 // bench baseline). Pure C++17, double-precision math like the reference's
@@ -128,9 +128,9 @@ std::vector<uint8_t> canny_edges(const Mat& gray) {
                               PFT_CANNY_GAUSSIAN_NB_STDDEV);
   Grad gr = sobel_on_matrix(sm);
   int h = gray.h, w = gray.w;
-  // Shared spec with the TPU kernel (ops/canny.py): NMS compares the
+  // Shared spec with the JAX kernel (ops/canny.py): NMS compares the
   // intensity normalized to [0,255] and rounded to the integer grid, so
-  // ridge ties break identically in f32 (TPU) and f64 (here).
+  // ridge ties break identically in f32 (JAX) and f64 (here).
   double imn = 1e300, imx = -1e300;
   for (double e : gr.intensity.v) {
     imn = std::min(imn, e);
@@ -140,7 +140,7 @@ std::vector<uint8_t> canny_edges(const Mat& gray) {
   Mat iq(h, w);
   for (size_t i = 0; i < iq.v.size(); i++)
     iq.v[i] = std::nearbyint((gr.intensity.v[i] - imn) * 255.0 / ispan);
-  // NMS, 4-bin quantization identical to the TPU kernel (ops/canny.py)
+  // NMS, 4-bin quantization identical to the JAX kernel (ops/canny.py)
   Mat nms(h, w);
   const int dy_a[4] = {0, -1, -1, -1}, dx_a[4] = {1, 1, 0, -1};
   for (int y = 0; y < h; y++)
@@ -269,7 +269,7 @@ void pf_oracle_canny(const uint8_t* in, uint8_t* out, int h, int w) {
   gray_to_rgba(v, out);
 }
 
-// ACE with explicit shared samples (parity mode: the TPU kernel and the
+// ACE with explicit shared samples (parity mode: the JAX kernel and the
 // oracle are fed identical coordinates — SURVEY.md §7 hard-part 3).
 void pf_oracle_ace_samples(const uint8_t* in, uint8_t* out, int h, int w,
                            const int* sy, const int* sx, int ns, double slope,
@@ -354,7 +354,7 @@ inline void ace_accum(const uint8_t* in, int w, size_t i, int j, double slope,
 }  // namespace
 
 // Per-pixel independent samples with EXPLICIT flat indices idx[h*w*ns]
-// (pixel i uses idx[i*ns + s]) — parity harness for the TPU kernel's
+// (pixel i uses idx[i*ns + s]) — parity harness for the JAX kernel's
 // faithful mode="per_pixel" estimator (ref: ace.c per-pixel sampling,
 // SURVEY.md §3.1): both sides consume identical samples, so the
 // comparison is exact arithmetic, no RNG in the loop.
@@ -370,7 +370,7 @@ void pf_oracle_ace_pixel_samples(const uint8_t* in, uint8_t* out, int h,
 
 // Reference-faithful fully random per-pixel sampling (ref: ace.c rand()
 // loop) with a deterministic xorshift64* stream — the distributional
-// parity target: the TPU estimators must match its output statistics.
+// parity target: the JAX estimators must match its output statistics.
 void pf_oracle_ace_rand(const uint8_t* in, uint8_t* out, int h, int w,
                         int ns, double slope, double limit, uint64_t seed) {
   std::vector<double> num((size_t)h * w * 3, 0.0), den((size_t)h * w * 3, 0.0);
@@ -635,7 +635,7 @@ void pf_oracle_masks(const uint8_t* in, uint8_t* out, int h, int w) {
 // test, per-ray median clamp, connected components over stroke-width ratio
 // <= 3, letter-geometry filters, nested-box rejection, two polarity passes.
 //
-// Spec extension shared with the TPU kernel (ops/swt.py): a polarity
+// Spec extension shared with the JAX kernel (ops/swt.py): a polarity
 // consistency gate — the dark-on-light pass keeps only pixels darker than
 // the page median and vice versa — rejects page-spanning pseudo strokes
 // (inter-letter gaps on blank margins). Both sides implement it
@@ -903,7 +903,7 @@ int main(int argc, char** argv) {
                 (double)h * w / 1e6 / dt, dt);
     return 0;
   }
-  // per-filter CPU baselines for BENCH_DETAIL's vs_oracle columns
+  // per-filter CPU baselines (MP/s of one oracle filter on one page)
   if (cmd == "bench-filter" && argc >= 5) {
     std::string f = argv[2];
     int h = std::atoi(argv[3]), w = std::atoi(argv[4]);

@@ -1,7 +1,7 @@
 """Drop-in `pillowfight` module (ref: src/pillowfight/__init__.py —
 SURVEY.md §1 L4: `import pillowfight; pillowfight.ace(img)`).
 
-Existing pypillowfight user code runs unmodified against the TPU build:
+Existing pypillowfight user code runs unmodified against this build:
 this top-level shim re-exports the compat façade from
 `libpillowfight_tpu.compat` (PIL.Image in -> PIL.Image out, same public
 names, enums, and defaults as the reference's Python package).

@@ -3,6 +3,7 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from libpillowfight_tpu.ops.ace import ace, ace_with_samples
 
@@ -98,3 +99,38 @@ def test_ace_rolled_matches_explicit_pixel_samples(rng, page):
     want = np.asarray(ace_with_pixel_samples(
         jnp.asarray(page)[None], jnp.asarray(idx)[None], 10.0, 1000.0)[0])
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("b,h,w,s", [
+    (1, 45, 150, 7),    # one tile row, width not a tile multiple
+    (2, 70, 260, 12),   # several tiles per axis, ragged edges
+    (1, 17, 33, 5),     # smaller than one tile
+])
+def test_ace_spray_kernel_interpret_matches_scan(rng, b, h, w, s):
+    """The Triton spray kernel, run by the Pallas interpreter, against the
+    XLA scan on identical samples: the normalized field n within f32
+    rounding (rsqrt vs sqrt+divide), the uint8 output within 1 LSB, and
+    the output shape and alpha untouched at edge-tile shapes."""
+    from libpillowfight_tpu.ops.ace import ace_with_samples_kernel, spray_scan
+    from libpillowfight_tpu.ops.pallas.ace_kernel import ace_spray
+
+    pages = rng.integers(0, 256, (b, h, w, 4), dtype=np.uint8)
+    sy = jnp.asarray(rng.integers(0, h, (b, s)).astype(np.int32))
+    sx = jnp.asarray(rng.integers(0, w, (b, s)).astype(np.int32))
+    x = jnp.asarray(pages)
+    rgb = x[..., :3].astype(jnp.float32)
+    sval = jnp.take_along_axis(rgb.reshape(b, h * w, 3),
+                               (sy * w + sx)[..., None], axis=1)
+    n = ace_spray(jnp.moveaxis(rgb, -1, 1), sy, sx, jnp.moveaxis(sval, -1, 1),
+                  10.0, 1000.0, interpret=True)
+    assert n.shape == (b, 3, h, w)
+    np.testing.assert_allclose(
+        np.moveaxis(np.asarray(n), 1, -1),
+        np.asarray(spray_scan(x, sy, sx, 10.0, 1000.0)), atol=1e-5)
+
+    got = np.asarray(ace_with_samples_kernel(x, sy, sx, 10.0, 1000.0,
+                                             interpret=True))
+    want = np.asarray(ace_with_samples(x, sy, sx, 10.0, 1000.0))
+    assert got.shape == pages.shape and got.dtype == np.uint8
+    np.testing.assert_array_equal(got[..., 3], pages[..., 3])
+    assert np.abs(got[..., :3].astype(int) - want[..., :3].astype(int)).max() <= 1

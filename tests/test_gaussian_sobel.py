@@ -2,6 +2,7 @@
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from libpillowfight_tpu.ops.gaussian import gaussian, gaussian_on_matrix
 from libpillowfight_tpu.ops.sobel import sobel, sobel_on_matrix
@@ -59,3 +60,26 @@ def test_sobel_public_op(page):
     assert np.all(out[..., 3] == 255)
     # uniform regions are zero; edges are bright
     assert out[..., 0].max() == 255
+
+
+def _numpy_sep_blur(g, sigma, nb_stddev):
+    """Zero-padded separable gaussian in float64: rows, then columns."""
+    hw = int(np.ceil(sigma * nb_stddev))
+    xs = np.arange(-hw, hw + 1, dtype=np.float64)
+    k = np.exp(-(xs ** 2) / (2.0 * sigma ** 2))
+    k /= k.sum()
+    p = np.pad(g.astype(np.float64), ((0, 0), (hw, hw), (hw, hw)))
+    h, w = g.shape[1:]
+    rows = sum(k[i] * p[:, :, i : i + w] for i in range(2 * hw + 1))
+    return sum(k[i] * rows[:, i : i + h, :] for i in range(2 * hw + 1))
+
+
+@pytest.mark.parametrize("sigma,nb_stddev,shape", [
+    (2.0, 5, (2, 150, 170)),   # canny/swt's blur
+    (0.8, 3, (1, 64, 130)),    # a short kernel
+])
+def test_gaussian_on_matrix_matches_numpy(rng, sigma, nb_stddev, shape):
+    x = (rng.standard_normal(shape) * 100).astype(np.float32)
+    got = np.asarray(gaussian_on_matrix(jnp.asarray(x), sigma, nb_stddev))
+    want = _numpy_sep_blur(x, sigma, nb_stddev)
+    np.testing.assert_allclose(got, want, atol=2e-3)

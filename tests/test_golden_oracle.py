@@ -1,6 +1,6 @@
-"""Golden tests: TPU kernels vs the C++ oracle, per-pixel.
+"""Golden tests: JAX kernels vs the C++ oracle, per-pixel.
 
-Parity contract (BASELINE.md): <=1 LSB for linear filters; structural
+Parity contract (PARITY.md): <=1 LSB for linear filters; structural
 filters (flood/CC/strip scans are discrete decisions) must match
 near-exactly — we allow a tiny fraction of boundary pixels to differ to
 absorb f32-vs-f64 threshold rounding, and assert IoU >= 0.99 on the
@@ -129,7 +129,7 @@ def test_swt_vs_oracle(mode):
             assert d[both].max() <= 1
 
 
-@pytest.mark.parametrize("name,tpu_fn", [
+@pytest.mark.parametrize("name,jax_fn", [
     ("blackfilter", unpaper.unpaper_blackfilter),
     ("noisefilter", unpaper.unpaper_noisefilter),
     ("blurfilter", unpaper.unpaper_blurfilter),
@@ -137,10 +137,10 @@ def test_swt_vs_oracle(mode):
     ("border", unpaper.unpaper_border),
     ("masks", unpaper.unpaper_masks),
 ])
-def test_unpaper_vs_oracle(rng, name, tpu_fn):
+def test_unpaper_vs_oracle(rng, name, jax_fn):
     page = _scanlike(rng, h=220, w=260)
     want = getattr(oracle, name)(page)
-    got = np.asarray(tpu_fn(jnp.asarray(page)))
+    got = np.asarray(jax_fn(jnp.asarray(page)))
     iou = _iou_wiped(page, got, want)
     assert iou >= 0.99, f"{name} wiped-region IoU {iou:.4f}"
     n, _ = bitmap.compare(jnp.asarray(got)[None], jnp.asarray(want)[None])
@@ -202,7 +202,7 @@ def test_ace_per_pixel_vs_oracle_identical_samples(rng):
 
 
 def test_ace_distributional_vs_oracle():
-    """Both TPU estimators (shared spray, per-pixel) must match the
+    """Both JAX estimators (shared spray, per-pixel) must match the
     reference-faithful random estimator's output DISTRIBUTION (channel
     mean/std), since per-draw RNG cannot match (SURVEY §7 hard-part 3)."""
     from libpillowfight_tpu.ops.ace import ace
