@@ -17,7 +17,8 @@ One process drives the card(s). Phases, in order:
   ops    gaussian and sobel on A4 (<= 1 LSB of the oracle), canny on
          A4 x 16 through EDGE_STACK, SWT on an A4 text page, ACE shared at
          600-dpi A4 with S=100 (the Triton kernel against the XLA scan and
-         the oracle, both timed) and ACE rolled on A4 (against the CPU
+         the oracle, both timed; ace(mode="shared") must lower to the
+         kernel and match it) and ACE rolled on A4 (against the CPU
          backend, same key).
   lane   the on-card pytest lane, tests_gpu/, in this process.
 
@@ -37,6 +38,7 @@ import argparse
 import concurrent.futures
 import json
 import os
+import re
 import sys
 import tempfile
 import time
@@ -244,7 +246,8 @@ def phase_ops(seed: int, shape=A4, shape_600=A4_600, canny_pages: int = 16,
     import jax.numpy as jnp
 
     from libpillowfight_tpu.ops.ace import (
-        ace, ace_with_samples, ace_with_samples_kernel, spray_scan,
+        _sample_coords, ace, ace_with_samples, ace_with_samples_kernel,
+        spray_scan,
     )
     from libpillowfight_tpu.ops.gaussian import gaussian
     from libpillowfight_tpu.ops.pallas.ace_kernel import ace_spray
@@ -260,9 +263,9 @@ def phase_ops(seed: int, shape=A4, shape_600=A4_600, canny_pages: int = 16,
     edge_pages = scan_pages(canny_pages, h, w, seed + 2000)
     tpage = text_page(h, w)
     cpage = color_page(*shape_600, seed + 3000)
-    rng = np.random.default_rng(seed)
-    sy = rng.integers(0, shape_600[0], (1, samples)).astype(np.int32)
-    sx = rng.integers(0, shape_600[1], (1, samples)).astype(np.int32)
+    # the samples ace(mode="shared", seed=seed) draws for one page
+    sy, sx = (np.asarray(a) for a in _sample_coords(
+        jax.random.PRNGKey(seed), 1, samples, *shape_600))
 
     # the oracle runs on host threads (ctypes drops the GIL) while the
     # card works
@@ -330,7 +333,19 @@ def phase_ops(seed: int, shape=A4, shape_600=A4_600, canny_pages: int = 16,
     d_ko = lsb(out_k, want["ace"].result())
     log(f"ops: ace kernel vs oracle.ace_samples: {d_ko} LSB")
     check(d_ko <= 1, "ops: ace kernel differs from the oracle")
-    del out_k, out_s, xc
+
+    # the public entry point: shared mode must lower to the Triton kernel
+    shared = jax.jit(lambda p: ace(p, nb_samples=samples, slope=10.0,
+                                   limit=1000.0, seed=seed, mode="shared"))
+    calls = re.findall(r"custom_call @([\w$.]+)", shared.lower(xc).as_text())
+    check(calls == ["__gpu$xla.gpu.triton"],
+          f"ops: ace shared lowers to custom calls {calls}, not the kernel")
+    dt_e, out_e = timed(shared, xc)
+    d_ek = lsb(np.asarray(out_e[0]), out_k)
+    log(f"ops: ace(mode='shared') {dt_e * 1e3:.3f} ms [{card}]; custom calls "
+        f"{calls}; vs the kernel on the same samples {d_ek} LSB")
+    check(d_ek <= 1, "ops: ace(mode='shared') differs from the kernel")
+    del out_k, out_s, out_e, xc
 
     # ACE rolled: distributional oracle pin only (PARITY.md #15), so the
     # GPU is held to the CPU backend on the same key

@@ -193,9 +193,9 @@ def _flood_fixed_point(seeds: jax.Array, mask: jax.Array, connectivity: int,
         return r2, jnp.any(r2 != r), it + 1
 
     with jax.named_scope("flood_fixed_point"):
-        r, _, rounds = jax.lax.while_loop(
+        r, _, _ = jax.lax.while_loop(
             cond, body, (round_(seeds), jnp.bool_(True), 1))
-    return r, rounds
+    return r
 
 
 _COARSE = 4  # multigrid coarsening factor
@@ -231,12 +231,6 @@ def flood_reach(seeds: jax.Array, mask: jax.Array, connectivity: int = 8,
     pixels exceed `leap`), and the final full-res fixed point is exact
     regardless of the starting subset.
     """
-    return _flood(seeds, mask, connectivity, max_iters, leap)[0]
-
-
-def _flood(seeds, mask, connectivity, max_iters, leap):
-    """flood_reach's body. Also returns the rounds its fixed points ran,
-    int32 (coarse, full-resolution) — 0 coarse rounds on small pages."""
     assert leap == 1 or connectivity == 8, "leap requires 8-connectivity"
     mask = mask.astype(bool)
     seeds = seeds.astype(bool) & mask
@@ -245,7 +239,6 @@ def _flood(seeds, mask, connectivity, max_iters, leap):
     if max_iters is None:
         max_iters = h * w + 2
     c = _COARSE
-    coarse_rounds = jnp.int32(0)
     if h >= 4 * c and w >= 4 * c:
         ph, pw = -h % c, -w % c
         mp = jnp.pad(mask, ((0, 0), (0, ph), (0, pw)))
@@ -253,14 +246,12 @@ def _flood(seeds, mask, connectivity, max_iters, leap):
         hc, wc = (h + ph) // c, (w + pw) // c
         blocks_all = mp.reshape(b, hc, c, wc, c).all(axis=(2, 4))
         seeds_any = sp.reshape(b, hc, c, wc, c).any(axis=(2, 4))
-        r_c, coarse_rounds = _flood_fixed_point(
-            seeds_any & blocks_all, blocks_all, connectivity, max_iters,
-            leap=(leap - 1) // c + 1)
+        r_c = _flood_fixed_point(seeds_any & blocks_all, blocks_all,
+                                 connectivity, max_iters,
+                                 leap=(leap - 1) // c + 1)
         up = jnp.repeat(jnp.repeat(r_c, c, axis=1), c, axis=2)[:, :h, :w]
         seeds = seeds | (up & mask)
-    r, rounds = _flood_fixed_point(seeds, mask, connectivity, max_iters,
-                                   leap=leap)
-    return r, (coarse_rounds, rounds)
+    return _flood_fixed_point(seeds, mask, connectivity, max_iters, leap=leap)
 
 
 # --------------------------------------------------------------------------

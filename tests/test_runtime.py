@@ -2,6 +2,7 @@
 and chip_smoke.py's refusal to run without a GPU."""
 
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -29,6 +30,23 @@ def test_cpu_lowering_is_plain_xla():
         text = jax.jit(fn).lower(x).as_text().lower()
         assert "mosaic" not in text
         assert "custom_call" not in text
+
+
+@pytest.mark.parametrize("platform", ["cuda", "cpu"])
+def test_ace_shared_dispatch(platform):
+    """ace(mode="shared") lowers to the Triton spray kernel for CUDA and
+    to plain XLA for the CPU: no silent fallback on the GPU."""
+    from libpillowfight_tpu.ops.ace import ace
+
+    x = jax.ShapeDtypeStruct((1, 96, 160, 4), jnp.uint8)
+    fn = jax.jit(lambda p: ace(p, nb_samples=9, mode="shared", seed=0))
+    text = fn.trace(x).lower(lowering_platforms=(platform,)).as_text()
+    calls = re.findall(r"custom_call @([\w$.]+)", text)
+    if platform == "cuda":
+        assert calls == ["__gpu$xla.gpu.triton"]
+        assert "ace_spray" in text
+    else:
+        assert calls == []
 
 
 def test_compile_cache_env_var_wins(tmp_path):
@@ -79,3 +97,7 @@ def test_chip_smoke_refuses_cpu(tmp_path, where):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+    if where == "alone":  # the program is not there to import
+        assert "No module named 'libpillowfight_tpu'" in out.stderr
+    else:
+        assert "no GPU" in out.stderr

@@ -160,6 +160,25 @@ def test_ace_triton_kernel_compiled(rng):
     assert np.abs(got[..., :3].astype(int) - want[..., :3].astype(int)).max() <= 1
 
 
+def test_ace_shared_entry_runs_triton(rng):
+    """ace(mode="shared"), the public entry, lowers to the Triton kernel on
+    the card and equals it on the samples it draws from its seed."""
+    import re
+
+    from libpillowfight_tpu.ops.ace import _sample_coords, ace, ace_with_samples_kernel
+
+    b, h, w, s = 2, 301, 455, 37
+    pages = jnp.asarray(rng.integers(0, 256, (b, h, w, 4), dtype=np.uint8))
+    fn = jax.jit(lambda p: ace(p, nb_samples=s, seed=3, mode="shared"))
+    calls = re.findall(r"custom_call @([\w$.]+)", fn.lower(pages).as_text())
+    assert calls == ["__gpu$xla.gpu.triton"]
+    sy, sx = _sample_coords(jax.random.PRNGKey(3), b, s, h, w)
+    want = np.asarray(jax.jit(ace_with_samples_kernel, static_argnums=(3, 4))(
+        pages, sy, sx, 10.0, 1000.0))
+    got = np.asarray(fn(pages))
+    assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+
+
 # ----------------------------------------------------------------- parity
 
 def _cpu(fn, *args):
